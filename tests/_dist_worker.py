@@ -29,12 +29,12 @@ import numpy as np  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from chessboard_vision_tpu.parallel.distributed import (  # noqa: E402
+from chessboard_vision.parallel.distributed import (  # noqa: E402
     distribute_local_streams,
     global_stream_mesh,
     init_distributed,
 )
-from chessboard_vision_tpu.parallel.mesh import replicated, stream_sharding  # noqa: E402
+from chessboard_vision.parallel.mesh import replicated, stream_sharding  # noqa: E402
 
 assert init_distributed(), "distributed init failed"
 assert jax.process_count() == 2 and jax.device_count() == 8

@@ -123,8 +123,8 @@ def render_board_image_hard(
     piece_colors=None,
 ):
     """A 'hard' board render: photographic-texture stand-in for recorded
-    footage (no camera in this environment). Adds the failure modes VERDICT
-    item 8 asks the decision boundary to be calibrated against:
+    footage (no camera in this environment). Adds the failure modes the
+    decision boundary is calibrated against:
 
     - wood-grain square texture (two sine fields per square, random phase)
     - radially shaded pieces with per-frame center jitter (+-3 px) and
@@ -328,7 +328,7 @@ PIECE_RADIUS_FRAC = {
 def board_render_maps(board):
     """(occ, colors, radii) (8, 8) render maps from a rules Board: true
     piece colors and per-type base radii."""
-    from chessboard_vision_tpu.rules import chess
+    from chessboard_vision.rules import chess
 
     occ = np.zeros((8, 8), bool)
     colors = np.empty((8, 8), object)

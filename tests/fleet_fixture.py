@@ -23,8 +23,8 @@ MARGIN = 80
 
 
 def make_fleet_pipeline(mesh):
-    from chessboard_vision_tpu.geometry import BoardGeometry
-    from chessboard_vision_tpu.parallel.multistream import MultiStreamPipeline
+    from chessboard_vision.geometry import BoardGeometry
+    from chessboard_vision.parallel.multistream import MultiStreamPipeline
 
     g = BoardGeometry.from_calibration(
         FLEET_CORNERS, display_size=DISPLAY_SIZE, margin=MARGIN
@@ -38,7 +38,7 @@ def stream_frames(gi: int):
     Stream gi's game: the pawn on file gi%8 leaves its home square — each
     rig sees a different board, so cross-process shard mixups can't pass.
     """
-    from chessboard_vision_tpu.ops.static_resample import to_planar
+    from chessboard_vision.ops.static_resample import to_planar
 
     from fixtures import initial_occupancy, make_board_frame
 

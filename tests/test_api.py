@@ -1,10 +1,10 @@
-"""Top-level convenience API (chessboard_vision_tpu.api) — the
+"""Top-level convenience API (chessboard_vision.api) — the
 BASELINE-named entry points, parity-checked against the oracle paths."""
 
 import numpy as np
 import pytest
 
-import chessboard_vision_tpu as cbv
+import chessboard_vision as cbv
 
 from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame
 
@@ -65,7 +65,7 @@ def test_generate_fen_reference_api():
         {"center": (30, 30), "class": "white-rook", "conf": 0.9},
         {"center": (100, 30), "class": "black-king", "conf": 0.8},
     ]
-    from chessboard_vision_tpu.api import map_detections_to_board
+    from chessboard_vision.api import map_detections_to_board
 
     board_map = map_detections_to_board(detections, board_size=620)
     fen = cbv.generate_fen(board_map)
@@ -75,7 +75,7 @@ def test_generate_fen_reference_api():
 def test_digitize_video_one_call(tmp_path):
     """api.digitize_video: video file -> moves + FEN + PGN in one call."""
     import cv2
-    import chessboard_vision_tpu as cbv
+    import chessboard_vision as cbv
     from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame
 
     rng = np.random.default_rng(11)

@@ -1,8 +1,8 @@
 """Board-verifier tests (the working replacement for the reference's
 orphan board_verifiers.py)."""
 
-from chessboard_vision_tpu.rules import GameState
-from chessboard_vision_tpu.session.board_verifier import (
+from chessboard_vision.rules import GameState
+from chessboard_vision.session.board_verifier import (
     InitialBoardVerifier,
     IncrementalBoardVerifier,
     expected_initial_occupancy,

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.models.pipeline import VisionPipeline, occupancy_to_set
-from chessboard_vision_tpu.ops.piece import METHOD_CENTER_DIFF, METHOD_HOUGH
-from chessboard_vision_tpu.rules import GameState
-from chessboard_vision_tpu.tools.calibrate_sensitivity import (
+from chessboard_vision import geometry as geo
+from chessboard_vision.models.pipeline import VisionPipeline, occupancy_to_set
+from chessboard_vision.ops.piece import METHOD_CENTER_DIFF, METHOD_HOUGH
+from chessboard_vision.rules import GameState
+from chessboard_vision.tools.calibrate_sensitivity import (
     lifted_square_and_destinations,
 )
 

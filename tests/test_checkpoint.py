@@ -12,9 +12,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from chessboard_vision_tpu.utils.checkpoint import load_tree, save_tree
-from chessboard_vision_tpu.session.game_session import GameSession
-from chessboard_vision_tpu.rules import chess
+from chessboard_vision.utils.checkpoint import load_tree, save_tree
+from chessboard_vision.session.game_session import GameSession
+from chessboard_vision.rules import chess
 
 from fixtures import DEFAULT_CORNERS, make_board_frame
 
@@ -45,7 +45,7 @@ def test_tree_roundtrip(tmp_path):
 def test_tree_legacy_scalar_leaf_broadcasts(tmp_path):
     """A checkpoint leaf saved as a scalar loads into a widened vector
     template (ChangeModelState.calibrated went () -> (64,); old
-    checkpoints must stay resumable — ADVICE r3)."""
+    checkpoints must stay resumable)."""
     old = Inner(jnp.zeros((2, 3)), jnp.asarray(True))  # b saved as scalar
     p = str(tmp_path / "c.npz")
     save_tree(p, old, {})
@@ -57,8 +57,8 @@ def test_tree_legacy_scalar_leaf_broadcasts(tmp_path):
 
 def test_tree_legacy_3d_change_leaf_flattens(tmp_path):
     """A checkpoint saved when the change model stored (64, H, W) loads
-    into the flat (64, H*W) template (TPU layout-unambiguity redesign,
-    PERF.md round-4 cont. 4) with identical row-major values."""
+    into the flat (64, H*W) template (the layout-unambiguity redesign,
+    ops/change.ChangeModelState) with identical row-major values."""
     rng = np.random.default_rng(0)
     old_means = rng.uniform(0, 255, (64, 7, 5)).astype(np.float32)
     old = Inner(jnp.asarray(old_means), jnp.ones((64,), bool))

@@ -7,8 +7,8 @@ en-passant/promotion-heavy positions).
 
 import pytest
 
-from chessboard_vision_tpu.rules import chesslib as chess
-from chessboard_vision_tpu.rules.chesslib import Board, Move, perft
+from chessboard_vision.rules import chesslib as chess
+from chessboard_vision.rules.chesslib import Board, Move, perft
 
 
 class TestBasics:
@@ -120,7 +120,7 @@ def test_perft(fen, depth, expected):
 
 class TestDrawAdjudication:
     """50-move rule, threefold repetition, insufficient material
-    (VERDICT r3 item 7 — the python-chess surface the reference
+    (the python-chess surface the reference
     inherited via `import chess`, reference game_state.py:1)."""
 
     def test_threefold_repetition_knight_shuffle(self):

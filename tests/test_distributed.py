@@ -14,8 +14,8 @@ import sys
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu.parallel import distributed as dist
-from chessboard_vision_tpu.parallel.mesh import make_mesh
+from chessboard_vision.parallel import distributed as dist
+from chessboard_vision.parallel.mesh import make_mesh
 
 
 def test_global_mesh_single_process():

@@ -15,8 +15,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(__file__))
 from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame  # noqa: E402
 
-from chessboard_vision_tpu.session.drift import DriftMonitor  # noqa: E402
-from chessboard_vision_tpu.session.game_session import GameSession  # noqa: E402
+from chessboard_vision.session.drift import DriftMonitor  # noqa: E402
+from chessboard_vision.session.game_session import GameSession  # noqa: E402
 
 
 BUMP = np.array([[12, 7]] * 4, np.float64)  # a rigid camera nudge
@@ -112,8 +112,8 @@ class TestMultiStreamAutoRecalibration:
         """Stream 0's camera gets bumped; the batched session rebuilds in
         per-stream-geometry mode and BOTH streams then commit moves at
         their (new/old) corners — games preserved across the rebuild."""
-        from chessboard_vision_tpu import geometry as geo
-        from chessboard_vision_tpu.parallel.session import MultiStreamSession
+        from chessboard_vision import geometry as geo
+        from chessboard_vision.parallel.session import MultiStreamSession
 
         rng = np.random.default_rng(6)
         g = geo.BoardGeometry.from_calibration(np.asarray(DEFAULT_CORNERS))
@@ -217,8 +217,8 @@ def test_enhanced_session_survives_per_stream_rebuild():
     enhancer's color warp must ride PER-STREAM tile plans (the round-4
     extraction path) — both streams keep committing moves after the
     rebuild with the enhancement still fused in."""
-    from chessboard_vision_tpu import geometry as geo
-    from chessboard_vision_tpu.parallel.session import MultiStreamSession
+    from chessboard_vision import geometry as geo
+    from chessboard_vision.parallel.session import MultiStreamSession
 
     rng = np.random.default_rng(13)
     g = geo.BoardGeometry.from_calibration(np.asarray(DEFAULT_CORNERS))

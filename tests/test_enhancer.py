@@ -8,9 +8,9 @@ sharpen/normalize/Otsu are exact given identical inputs.
 import cv2
 import numpy as np
 
-from chessboard_vision_tpu.models.enhancer import ImageEnhancerTPU
-from chessboard_vision_tpu.ops import enhance as enh_ops
-from chessboard_vision_tpu.reference import ImageEnhancerCV
+from chessboard_vision.models.enhancer import ImageEnhancerJax
+from chessboard_vision.ops import enhance as enh_ops
+from chessboard_vision.reference import ImageEnhancerCV
 
 import jax.numpy as jnp
 
@@ -58,7 +58,7 @@ class TestBilateral:
 class TestFullEnhancer:
     def test_stages_and_pipeline_close_to_oracle(self, rng):
         frame = _board_like(rng, 240, 240)
-        ours = ImageEnhancerTPU()
+        ours = ImageEnhancerJax()
         ref = ImageEnhancerCV()
 
         o1 = ours.correct_lighting(frame).astype(int)
@@ -74,7 +74,7 @@ class TestFullEnhancer:
 
     def test_prepare_analysis_consistent(self, rng):
         frame = _board_like(rng, 160, 160)
-        ours = ImageEnhancerTPU()
+        ours = ImageEnhancerJax()
         gray, binary = ours.prepare_analysis(frame)
         g_ref = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
         _, b_ref = cv2.threshold(
@@ -95,7 +95,7 @@ class TestFullEnhancer:
             "target_hue": 100,
             "hue_window": 25,
         }
-        ours = ImageEnhancerTPU(profile=profile)
+        ours = ImageEnhancerJax(profile=profile)
         ref = ImageEnhancerCV(profile=profile)
         o = ours.apply_color_profile(frame).astype(int)
         r = ref.apply_color_profile(frame).astype(int)

@@ -6,7 +6,7 @@ switching, capture (1 vanished / 0 appeared), both castlings, en passant,
 and reset — all on FEN-seeded positions with no camera/CV involvement.
 """
 
-from chessboard_vision_tpu.rules import chess, GameState
+from chessboard_vision.rules import chess, GameState
 
 
 def occ_after(gs, remove=(), add=()):
@@ -120,7 +120,7 @@ class TestGameState:
 
 class TestFen:
     def test_get_chess_square(self):
-        from chessboard_vision_tpu.rules import get_chess_square
+        from chessboard_vision.rules import get_chess_square
 
         name, (gx, gy) = get_chess_square(10, 10, 620)
         assert name == "a8" and (gx, gy) == (0, 0)
@@ -130,7 +130,7 @@ class TestFen:
         assert gx == -1
 
     def test_generate_fen_startpos(self):
-        from chessboard_vision_tpu.rules import generate_fen, map_detections_to_board
+        from chessboard_vision.rules import generate_fen, map_detections_to_board
 
         # Place two kings via labeled detections
         dets = [
@@ -142,7 +142,7 @@ class TestFen:
         assert fen.split()[0] == "4k3/8/8/8/8/8/8/4K3"
 
     def test_conflict_resolution_keeps_highest_conf(self):
-        from chessboard_vision_tpu.rules import map_detections_to_board
+        from chessboard_vision.rules import map_detections_to_board
 
         dets = [
             {"center": (38, 38), "class": "white-pawn", "conf": 0.5},
@@ -153,7 +153,7 @@ class TestFen:
 
     def test_occupancy_to_fen(self):
         import numpy as np
-        from chessboard_vision_tpu.rules import occupancy_to_fen
+        from chessboard_vision.rules import occupancy_to_fen
 
         occ = np.zeros((8, 8), dtype=bool)
         occ[4, 0] = True  # e1

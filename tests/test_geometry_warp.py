@@ -13,9 +13,9 @@ whole thing is a precomputed-gather device op; we assert:
 import cv2
 import numpy as np
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.ops import warp as W
-from chessboard_vision_tpu.ops.filters import gaussian_blur_valid
+from chessboard_vision import geometry as geo
+from chessboard_vision.ops import warp as W
+from chessboard_vision.ops.filters import gaussian_blur_valid
 
 CORNERS = np.array([[173, 133], [1100, 110], [150, 650], [1131, 680]])
 
@@ -184,7 +184,7 @@ class TestSmartGridRefine:
 def test_from_config_honors_display_size():
     """"display_size": [w, h] in calibration.json overrides the reference's
     fixed 1280x720 capture assumption (sessions at other resolutions)."""
-    from chessboard_vision_tpu import geometry as geo
+    from chessboard_vision import geometry as geo
 
     cfg = {
         "corners": [[100, 50], [1800, 60], [90, 1000], [1810, 1010]],

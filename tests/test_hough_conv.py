@@ -1,15 +1,14 @@
-"""Conv (MXU) circle-detector backend: decision agreement vs the exact
+"""Conv circle-detector backend: decision agreement vs the exact
 voting backend. Small square sizes keep the CPU conv cheap; the full-scale
 calibration (the 3-clip regression set at 77px squares) lives in
 tests/test_regression_clip.py::test_exact_vs_conv_backend_agreement."""
 
 import numpy as np
-import jax
 import pytest
 import jax.numpy as jnp
 
-from chessboard_vision_tpu.ops import hough as hough_ops
-from chessboard_vision_tpu.ops import hough_conv as hc
+from chessboard_vision.ops import hough as hough_ops
+from chessboard_vision.ops import hough_conv as hc
 
 from fixtures import make_square
 
@@ -65,43 +64,12 @@ def test_conv_scores_separate_cleanly(rng):
     assert found[:32].all() and not found[32:].any()
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu", reason="Mosaic kernel needs TPU")
-def test_score_matmul_pallas_matches_xla_dot(rng):
-    """TPU score path parity: the Pallas basis matmul vs the XLA dot it
-    replaces (same bf16 operands, f32 accumulation)."""
-    Mq, K = 2 * hc._SCORE_MBLOCK, 384
-    basis = jnp.asarray(
-        rng.standard_normal((Mq, K)).astype(np.float32), jnp.bfloat16
-    )
-    pf = jnp.asarray(rng.standard_normal((64, K)).astype(np.float32), jnp.bfloat16)
-    got = np.asarray(hc._score_matmul_pallas(basis, pf.T))
-    want = np.asarray(
-        jax.lax.dot_general(
-            basis, pf, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )
-    )
-    # bf16 products accumulated in f32; ordering may differ between the
-    # two lowerings — tolerance covers reassociation only.
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-3)
+@pytest.mark.parametrize("n_streams", [1, 3])
+def test_score_matmul_matches_f32_numpy(rng, n_streams):
+    """The score product (bf16 operands, f32 accumulation) against an f32
+    numpy product, alone and under vmap over streams with the basis
+    unbatched (the batched pipeline's form)."""
+    from card_checks import check_score_matmul
 
-
-@pytest.mark.skipif(jax.default_backend() != "tpu", reason="Mosaic kernel needs TPU")
-def test_score_matmul_vmap_fold_bitexact(rng):
-    """The custom_vmap stream-folding rule (one kernel call over the
-    folded (K, S*64) column block — parallel/multistream's batched tick)
-    is BIT-identical to per-stream kernel calls: each output column is
-    the same f32-accumulated dot regardless of its neighbors."""
-    Mq, K, S = 2 * hc._SCORE_MBLOCK, 384, 4
-    basis = jnp.asarray(
-        rng.standard_normal((Mq, K)).astype(np.float32), jnp.bfloat16
-    )
-    pf_t = jnp.asarray(
-        rng.standard_normal((S, K, 64)).astype(np.float32), jnp.bfloat16
-    )
-    per_stream = np.stack(
-        [np.asarray(hc._score_matmul_pallas(basis, pf_t[i])) for i in range(S)]
-    )
-    folded = np.asarray(
-        jax.jit(jax.vmap(hc._score_matmul_tpu, in_axes=(None, 0)))(basis, pf_t)
-    )
-    np.testing.assert_array_equal(per_stream, folded)
+    planes = rng.standard_normal((n_streams, 64, 384)) if n_streams > 1 else rng.standard_normal((64, 384))
+    check_score_matmul(rng.standard_normal((300, 384)), planes, n_streams)

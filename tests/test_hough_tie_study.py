@@ -16,7 +16,7 @@ quantifies whether that ever matters for the app's decision
 - decision-relevant ties — tied top cells farther apart than the center
   window — are asserted to be ~absent on realistic square populations.
 
-Conclusion (also in PERF.md): decision-level parity is the right bar;
+Conclusion: decision-level parity is the right bar;
 pinning cv2's exact tie order would chase an implementation detail cv2
 itself does not guarantee across versions.
 """
@@ -25,9 +25,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from chessboard_vision_tpu.ops import hough as hough_ops
-from chessboard_vision_tpu.ops.canny import canny
-from chessboard_vision_tpu.ops.filters import sobel3
+from chessboard_vision.ops import hough as hough_ops
+from chessboard_vision.ops.canny import canny
+from chessboard_vision.ops.filters import sobel3
 
 from fixtures import make_square
 

@@ -6,7 +6,7 @@ reconnect wrapper."""
 import json
 from unittest import mock
 
-from chessboard_vision_tpu.net.lichess_client import LichessClient
+from chessboard_vision.net.lichess_client import LichessClient
 
 
 def make_client():
@@ -39,7 +39,7 @@ class TestTurnParity:
 
 
 class TestConnect:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_connect_success(self, get):
         resp = mock.MagicMock(status_code=200)
         resp.json.return_value = {"username": "tester"}
@@ -48,7 +48,7 @@ class TestConnect:
         assert c.connect()
         assert c.username == "tester"
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_connect_401(self, get):
         get.return_value = mock.MagicMock(status_code=401)
         c = make_client()
@@ -60,7 +60,7 @@ class TestConnect:
 
 
 class TestMoves:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_accepted(self, post):
         post.return_value = mock.MagicMock(status_code=200)
         c = make_client()
@@ -68,7 +68,7 @@ class TestMoves:
         assert c.make_move("e2e4")
         assert "abc" in post.call_args[0][0] and "e2e4" in post.call_args[0][0]
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_rejected(self, post):
         post.return_value = mock.MagicMock(status_code=400, text="invalid")
         c = make_client()
@@ -82,11 +82,11 @@ class TestMoves:
 
 class TestRateLimitAndRetry:
     """429/Retry-After handling + bounded transient-exception retry
-    (VERDICT r4 item 5 — the reference client, lichess_client.py:147-177,
+    (the reference client, lichess_client.py:147-177,
     dropped the move on ANY non-200 and ignored rate limiting)."""
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_429_waits_retry_after_then_succeeds(self, post, sleep):
         post.side_effect = [
             mock.MagicMock(status_code=429, text="", headers={"Retry-After": "3"}),
@@ -98,8 +98,8 @@ class TestRateLimitAndRetry:
         assert post.call_count == 2
         sleep.assert_called_once_with(3.0)
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_429_missing_header_waits_a_minute(self, post, sleep):
         """Lichess docs: 'wait a full minute' when throttled — that is the
         default when no Retry-After header arrives."""
@@ -112,8 +112,8 @@ class TestRateLimitAndRetry:
         assert c.make_move("e2e4")
         sleep.assert_called_once_with(60.0)
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_429_twice_drops(self, post, sleep):
         post.return_value = mock.MagicMock(
             status_code=429, text="", headers={"Retry-After": "1"}
@@ -123,7 +123,7 @@ class TestRateLimitAndRetry:
         assert not c.make_move("e2e4")
         assert post.call_count == 2  # bounded: one retry only
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_genuine_rejection_not_retried(self, post):
         """4xx other than 429 is a real rejection — retrying cannot fix a
         board that is ahead of the server; the drop semantics stay."""
@@ -133,8 +133,8 @@ class TestRateLimitAndRetry:
         assert not c.make_move("e2e4")
         assert post.call_count == 1
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_transient_exception_retries_once(self, post, get):
         import requests as _rq
 
@@ -154,8 +154,8 @@ class TestRateLimitAndRetry:
         assert c.make_move("e2e4")
         assert post.call_count == 2
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_landed_despite_lost_response_is_not_reposted(self, post, get):
         """The POST succeeded but the response was lost: the turn-state
         guard sees lastMove == our move and does NOT re-POST (a re-POST
@@ -174,8 +174,8 @@ class TestRateLimitAndRetry:
         assert c.make_move("e2e4")
         assert post.call_count == 1
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_exception_twice_drops(self, post, get):
         import requests as _rq
 
@@ -188,8 +188,8 @@ class TestRateLimitAndRetry:
         assert not c.make_move("e2e4")
         assert post.call_count == 2  # bounded
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_stream_429_sleeps_retry_after_then_ends(self, get, sleep):
         get.return_value = mock.MagicMock(
             status_code=429, headers={"Retry-After": "45"}
@@ -198,8 +198,8 @@ class TestRateLimitAndRetry:
         assert list(c.stream_game("gid")) == []
         sleep.assert_called_once_with(45.0)
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_connect_429_waits_then_succeeds(self, get, sleep):
         ok = mock.MagicMock(status_code=200)
         ok.json.return_value = {"username": "tester"}
@@ -211,8 +211,8 @@ class TestRateLimitAndRetry:
         assert c.connect()
         sleep.assert_called_once_with(2.0)
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_game_post_429_waits_then_succeeds(self, post, sleep):
         post.side_effect = [
             mock.MagicMock(status_code=429, text="", headers={"Retry-After": "5"}),
@@ -224,7 +224,7 @@ class TestRateLimitAndRetry:
         sleep.assert_called_once_with(5.0)
 
     def test_retry_after_parse(self):
-        from chessboard_vision_tpu.net.lichess_client import _retry_after_seconds
+        from chessboard_vision.net.lichess_client import _retry_after_seconds
 
         assert _retry_after_seconds(
             mock.MagicMock(headers={"Retry-After": "30"})
@@ -241,7 +241,7 @@ class TestRateLimitAndRetry:
 
 
 class TestStream:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_stream_parses_ndjson_and_sets_color(self, get):
         events = [
             {"type": "gameFull", "white": {"id": "tester"}, "black": {"id": "opp"},
@@ -257,13 +257,13 @@ class TestStream:
         assert [e["type"] for e in got] == ["gameFull", "gameState"]
         assert c.my_color == "white"
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_stream_error_status_ends(self, get):
         get.return_value = mock.MagicMock(status_code=404)
         c = make_client()
         assert list(c.stream_game("gid")) == []
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_stream_skips_bad_json(self, get):
         resp = mock.MagicMock(status_code=200)
         resp.iter_lines.return_value = [b"not-json", json.dumps({"type": "gameState"}).encode()]
@@ -272,8 +272,8 @@ class TestStream:
         got = list(c.stream_game("gid"))
         assert len(got) == 1
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_reconnect_wrapper_stops_on_stop_check(self, get, _sleep):
         resp = mock.MagicMock(status_code=200)
         resp.iter_lines.return_value = [json.dumps({"type": "gameState"}).encode()]
@@ -290,9 +290,9 @@ class TestStream:
 
 
 class TestSeek:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_seek_matches_via_ongoing_games_poll(self, get, post, _sleep):
         """The Board API seek stream is keep-alive only; the match is
         detected by polling /api/account/playing for a NEW game id
@@ -306,9 +306,9 @@ class TestSeek:
         c = make_client()
         assert c.seek_game() == "g123"
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_seek_rejected_returns_none(self, get, post, sleep):
         """A persistently rate-limited seek waits Retry-After once, then
         gives up (still rejected on the retry)."""
@@ -327,7 +327,7 @@ class TestSeek:
 class TestBoardApiExtras:
     """Draw offers, takeback, abort, claim-victory, chat, offeringDraw."""
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_move_with_draw_offer(self, post):
         post.return_value = mock.MagicMock(status_code=200)
         c = make_client()
@@ -337,7 +337,7 @@ class TestBoardApiExtras:
         assert c.make_move("e7e5")
         assert post.call_args.kwargs["params"] is None
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_draw_takeback_abort_claim(self, post):
         post.return_value = mock.MagicMock(status_code=200)
         c = make_client()
@@ -360,7 +360,7 @@ class TestBoardApiExtras:
         assert not c.send_chat("hi")
         assert c.get_chat() == []
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
     def test_send_chat(self, post):
         post.return_value = mock.MagicMock(status_code=200)
         c = make_client()
@@ -368,7 +368,7 @@ class TestBoardApiExtras:
         assert c.send_chat("good game", room="spectator")
         assert post.call_args.kwargs["data"] == {"room": "spectator", "text": "good game"}
 
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_get_chat(self, get):
         resp = mock.MagicMock(status_code=200)
         resp.json.return_value = [{"text": "glhf", "user": "opp"}]
@@ -379,7 +379,7 @@ class TestBoardApiExtras:
 
 
 class TestClock:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_stream_updates_clock(self, get):
         events = [
             {"type": "gameFull", "white": {"id": "tester"}, "black": {"id": "opp"},
@@ -399,7 +399,7 @@ class TestClock:
         assert c.clock.winc_ms == 5000
 
     def test_remaining_extrapolates_side_to_move(self):
-        from chessboard_vision_tpu.net.lichess_client import ClockState
+        from chessboard_vision.net.lichess_client import ClockState
         import time as _time
 
         clk = ClockState(wtime_ms=60000, btime_ms=60000, at=_time.monotonic() - 2.0)
@@ -415,7 +415,7 @@ class TestClock:
 
 class TestSessionDrawHandling:
     def test_auto_decline_draw_offer(self):
-        from chessboard_vision_tpu.session.lichess_session import LichessSession
+        from chessboard_vision.session.lichess_session import LichessSession
 
         client = mock.MagicMock()
         s = LichessSession.__new__(LichessSession)
@@ -431,7 +431,7 @@ class TestSessionDrawHandling:
         assert not s.draw_offered_by_opponent
 
     def test_surfaced_draw_offer_when_not_auto(self):
-        from chessboard_vision_tpu.session.lichess_session import LichessSession
+        from chessboard_vision.session.lichess_session import LichessSession
 
         client = mock.MagicMock()
         s = LichessSession.__new__(LichessSession)
@@ -447,8 +447,8 @@ class TestSessionDrawHandling:
         assert s.draw_offered_by_opponent
 
     def test_clock_hud_format(self):
-        from chessboard_vision_tpu.session.lichess_session import LichessSession
-        from chessboard_vision_tpu.net.lichess_client import ClockState
+        from chessboard_vision.session.lichess_session import LichessSession
+        from chessboard_vision.net.lichess_client import ClockState
 
         client = mock.MagicMock()
         client.clock = ClockState(wtime_ms=272000, btime_ms=301000, at=0.0)

@@ -12,8 +12,8 @@ from fixtures import DEFAULT_CORNERS, initial_occupancy, make_board_frame  # noq
 
 import jax  # noqa: E402
 
-from chessboard_vision_tpu import geometry as geo  # noqa: E402
-from chessboard_vision_tpu.parallel.session import MultiStreamSession  # noqa: E402
+from chessboard_vision import geometry as geo  # noqa: E402
+from chessboard_vision.parallel.session import MultiStreamSession  # noqa: E402
 
 
 def _build():

@@ -5,9 +5,9 @@ shared-inference castling fix (round-2 verdict weak #1)."""
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.parallel.session import MultiStreamSession, _StreamState
-from chessboard_vision_tpu.ops.static_resample import to_planar
+from chessboard_vision import geometry as geo
+from chessboard_vision.parallel.session import MultiStreamSession, _StreamState
+from chessboard_vision.ops.static_resample import to_planar
 
 from fixtures import make_board_frame, initial_occupancy, DEFAULT_CORNERS
 
@@ -28,7 +28,7 @@ def test_multistream_infer_move_resolves_castling():
     (which the reference's pair matching always does —
     /root/reference/game_session.py:227-265)."""
     sess = MultiStreamSession.__new__(MultiStreamSession)
-    from chessboard_vision_tpu.utils.logging import get_logger
+    from chessboard_vision.utils.logging import get_logger
 
     sess.log = get_logger("test-msession")
     st = _StreamState()

@@ -6,8 +6,8 @@ import threading
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu import native
-from chessboard_vision_tpu import geometry as geo
+from chessboard_vision import native
+from chessboard_vision import geometry as geo
 
 pytestmark = pytest.mark.skipif(not native.AVAILABLE, reason="native lib unavailable")
 
@@ -17,7 +17,7 @@ CORNERS = np.array([[173, 133], [1100, 110], [150, 650], [1131, 680]])
 class TestHostResampler:
     def test_gray_matches_device_path(self, rng):
         import jax.numpy as jnp
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.ops import static_resample as sr
 
         frame = rng.integers(0, 256, (720, 1280, 3), np.uint8)
         g = geo.BoardGeometry.from_calibration(CORNERS)
@@ -34,7 +34,7 @@ class TestHostResampler:
 
     def test_bgr_matches_device_path(self, rng):
         import jax.numpy as jnp
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.ops import static_resample as sr
 
         frame = rng.integers(0, 256, (720, 1280, 3), np.uint8)
         g = geo.BoardGeometry.from_calibration(CORNERS)

@@ -1,6 +1,6 @@
 """NoiseHandler FSM tests (mirrors reference test_noise_handler.py coverage)."""
 
-from chessboard_vision_tpu.session import NoiseHandler, NoiseState
+from chessboard_vision.session import NoiseHandler, NoiseState
 
 
 class TestNoiseHandler:

@@ -10,8 +10,8 @@ import cv2
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu import ops
-from chessboard_vision_tpu.ops import color as color_mod
+from chessboard_vision import ops
+from chessboard_vision.ops import color as color_mod
 import jax.numpy as jnp
 
 
@@ -152,7 +152,7 @@ class TestFilters:
 
     def test_normalize_minmax_constant_image(self):
         # mx == mn: naive scale math gives 0*inf = NaN, whose u8 cast is
-        # undefined on TPU; cv2's saturate_cast(NaN) yields 0 (all-alpha)
+        # platform-dependent; cv2's saturate_cast(NaN) yields 0 (all-alpha)
         img = np.full((20, 30, 3), 137, np.uint8)
         ours = np.asarray(ops.normalize_minmax(img))
         ref = cv2.normalize(img, None, alpha=0, beta=255, norm_type=cv2.NORM_MINMAX)
@@ -190,7 +190,7 @@ class TestOtsu:
 class TestPlanarLab:
     """planar_bgr2lab / planar_lab2bgr: the transpose-free enhanced-path
     forms must be BIT-equal to the HWC forms per pixel (they share the
-    channel-math core; PERF.md round 5 cont. 2)."""
+    channel-math core)."""
 
     def test_planar_bgr2lab_bitequal(self, rng):
         img = rng.integers(0, 256, (64, 96, 3), np.uint8)

@@ -5,12 +5,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from chessboard_vision_tpu.ops import fsm as fsm_ops
-from chessboard_vision_tpu.session.noise import NoiseHandler, NoiseState
-from chessboard_vision_tpu.parallel import make_mesh, MultiStreamPipeline
-from chessboard_vision_tpu.parallel.mesh import stream_sharding
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.models.pipeline import occupancy_to_set
+from chessboard_vision.ops import fsm as fsm_ops
+from chessboard_vision.session.noise import NoiseHandler, NoiseState
+from chessboard_vision.parallel import make_mesh, MultiStreamPipeline
+from chessboard_vision.parallel.mesh import stream_sharding
+from chessboard_vision import geometry as geo
+from chessboard_vision.models.pipeline import occupancy_to_set
 
 from fixtures import make_board_frame, initial_occupancy, DEFAULT_CORNERS
 
@@ -98,9 +98,9 @@ class TestMultiStream:
     def test_per_stream_geometries_match_independent_pipelines(self, rng):
         """Two streams with DIFFERENT corner calibrations in one batched
         step: outputs must equal two independent VisionPipelines, each
-        built on its own geometry (VERDICT round-1 item 6)."""
-        from chessboard_vision_tpu.models.pipeline import VisionPipeline
-        from chessboard_vision_tpu.ops import static_resample as sr
+        built on its own geometry."""
+        from chessboard_vision.models.pipeline import VisionPipeline
+        from chessboard_vision.ops import static_resample as sr
         from fixtures import make_board_frame
 
         corners_a = DEFAULT_CORNERS
@@ -142,9 +142,8 @@ class TestMultiStream:
 
     def test_33_streams_cross_the_flat_scan_threshold(self, rng):
         """The single-chip batched tick nests its stream scan (nested_scan)
-        so no FLAT lax.scan reaches length >= 32 — the remote-compiler hang
-        threshold that used to cap the scan path at 31 streams. 33 streams
-        (2 groups of 16 + remainder 1) must step and match ground truth."""
+        so no FLAT lax.scan reaches length >= 32. 33 streams (2 groups of
+        16 + remainder 1) must step and match ground truth."""
         g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
         n = 33
         ms = MultiStreamPipeline(g, n_streams=n)
@@ -220,15 +219,15 @@ class TestMultiStream:
 
 
 class TestBatchedConfigSurface:
-    """The full single-stream config surface in the N-stream shape
-    (VERDICT r3 item 3): enhancer, tuned sensitivity, detector overrides."""
+    """The full single-stream config surface in the N-stream shape:
+    enhancer, tuned sensitivity, detector overrides."""
 
     def test_batched_enhancer_matches_single(self, rng):
         """Shared geometry, scan path: MultiStreamPipeline(with_enhancer)
         is bit-identical per stream to VisionPipeline(with_enhancer) —
         BASELINE config 1 semantics in the batched deployment shape."""
-        from chessboard_vision_tpu.models.pipeline import VisionPipeline
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.models.pipeline import VisionPipeline
+        from chessboard_vision.ops import static_resample as sr
 
         profile = {"contrast": 1.1, "brightness": 6, "sat_scale": 1.2}
         g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)
@@ -266,8 +265,8 @@ class TestBatchedConfigSurface:
         """Tuned sensitivity (change_settings incl. a non-default blur
         kernel) + calibrator detector_overrides are honored on the scan
         path, matching the single-stream pipeline bit-for-bit."""
-        from chessboard_vision_tpu.models.pipeline import VisionPipeline
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.models.pipeline import VisionPipeline
+        from chessboard_vision.ops import static_resample as sr
 
         cs = {"z_threshold": 1.8, "alpha": 0.25, "initial_variance": 300.0,
               "blur_kernel": 7}
@@ -302,8 +301,8 @@ class TestBatchedConfigSurface:
         """Per-stream calibrations + with_enhancer: each stream's color
         board rides its own tile plan; outputs equal independent
         VisionPipeline(with_enhancer=True) runs on each geometry."""
-        from chessboard_vision_tpu.models.pipeline import VisionPipeline
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.models.pipeline import VisionPipeline
+        from chessboard_vision.ops import static_resample as sr
 
         profile = {"contrast": 1.05, "brightness": 3}
         corners_a = DEFAULT_CORNERS
@@ -396,8 +395,8 @@ class TestPerStreamChunkHWC:
 
 class TestStreamMajorChunk:
     """The shared-geometry single-chip step_chunk runs STREAM-MAJOR (outer
-    scan over streams, tick scan inside with the small single-stream carry
-    — PERF.md round 5). The loop interchange must be invisible: outputs
+    scan over streams, tick scan inside with the small single-stream
+    carry). The loop interchange must be invisible: outputs
     AND final state bit-equal to sequential per-tick step() calls."""
 
     def test_chunk_bitexact_vs_sequential_ticks(self, rng):
@@ -453,7 +452,7 @@ class TestStreamMajorChunk:
         """BASELINE config 1 on the stream-major chunk: with_enhancer
         ticks equal sequential enhanced step() calls."""
         from fixtures import make_board_frame
-        from chessboard_vision_tpu.ops import static_resample as sr
+        from chessboard_vision.ops import static_resample as sr
 
         profile = {"contrast": 1.1, "brightness": 5}
         g = geo.BoardGeometry.from_calibration(DEFAULT_CORNERS)

@@ -6,11 +6,11 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from chessboard_vision_tpu.ops.canny import canny
-from chessboard_vision_tpu.ops import hough as hough_ops
-from chessboard_vision_tpu.ops import piece as piece_ops
-from chessboard_vision_tpu.ops import change as change_ops
-from chessboard_vision_tpu.reference import PieceDetectorCV, ChangeDetectorCV
+from chessboard_vision.ops.canny import canny
+from chessboard_vision.ops import hough as hough_ops
+from chessboard_vision.ops import piece as piece_ops
+from chessboard_vision.ops import change as change_ops
+from chessboard_vision.reference import PieceDetectorCV, ChangeDetectorCV
 
 from fixtures import make_square
 
@@ -162,7 +162,7 @@ class TestChangeDetector:
         ref_detailed = oracle.detect_changes_detailed(self._squares_dict(cur))
 
         # device path
-        import chessboard_vision_tpu.ops as O
+        import chessboard_vision.ops as O
 
         pre_base = np.stack([cv2.GaussianBlur(cv2.cvtColor(s, cv2.COLOR_BGR2GRAY), (5, 5), 0) for s in base])
         pre_cur = np.stack([cv2.GaussianBlur(cv2.cvtColor(s, cv2.COLOR_BGR2GRAY), (5, 5), 0) for s in cur])
@@ -201,7 +201,7 @@ class TestChangeDetector:
         for f in range(8):
             for r in range(8):
                 sq = r * 8 + f
-                # state stores the model FLAT per square (TPU layout
+                # state stores the model FLAT per square (layout
                 # unambiguity) — row-major flatten matches the oracle's 2-D.
                 assert np.array_equal(
                     np.asarray(state.means[sq]), oracle.means[(f, r)].ravel()
@@ -270,11 +270,11 @@ class TestChangeUncalibratedGate:
 
 class TestBitplaneHysteresis:
     """The uint32 bitplane packing behind hysteresis propagation
-    (PERF.md round 5 cont. 3) — the dilation chain must be per-image
+    — the dilation chain must be per-image
     exact through the packed representation."""
 
     def test_pack_unpack_roundtrip(self, rng):
-        from chessboard_vision_tpu.ops.canny import _pack_bits, _unpack_bits
+        from chessboard_vision.ops.canny import _pack_bits, _unpack_bits
 
         for n in (1, 31, 32, 64, 65):
             x = rng.random((n, 9, 11)) < 0.3
@@ -283,7 +283,7 @@ class TestBitplaneHysteresis:
             assert np.array_equal(np.asarray(_unpack_bits(p, n)), x)
 
     def test_packed_dilate_matches_per_image(self, rng):
-        from chessboard_vision_tpu.ops.canny import (
+        from chessboard_vision.ops.canny import (
             _dilate3, _pack_bits, _unpack_bits)
 
         x = rng.random((40, 13, 17)) < 0.2

@@ -2,8 +2,8 @@
 
 import pytest
 
-from chessboard_vision_tpu.rules.chesslib import Board, Move
-from chessboard_vision_tpu.rules.pgn import game_to_pgn, san
+from chessboard_vision.rules.chesslib import Board, Move
+from chessboard_vision.rules.pgn import game_to_pgn, san
 
 
 def _san_seq(uci_moves, fen=None):
@@ -102,8 +102,8 @@ def test_session_to_pgn():
     import numpy as np
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from fixtures import DEFAULT_CORNERS
-    from chessboard_vision_tpu.session.game_session import GameSession
-    from chessboard_vision_tpu.rules.chesslib import Move
+    from chessboard_vision.session.game_session import GameSession
+    from chessboard_vision.rules.chesslib import Move
 
     s = GameSession(headless=True)
     s.configure({
@@ -114,7 +114,7 @@ def test_session_to_pgn():
     s.game.board.push(Move.from_uci("e2e4"))
     s.game.board.push(Move.from_uci("e7e5"))
     pgn = s.to_pgn(headers={"Black": "opponent"})
-    assert '[White "chessboard_vision_tpu"]' in pgn
+    assert '[White "chessboard_vision"]' in pgn
     assert '[Black "opponent"]' in pgn
     assert "1. e4 e5 *" in pgn
 
@@ -126,8 +126,8 @@ def test_session_to_pgn_from_position():
     import numpy as np
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from fixtures import DEFAULT_CORNERS
-    from chessboard_vision_tpu.session.game_session import GameSession
-    from chessboard_vision_tpu.rules.chesslib import Move
+    from chessboard_vision.session.game_session import GameSession
+    from chessboard_vision.rules.chesslib import Move
 
     fen = "rnbqkbnr/pppppppp/8/8/4P3/8/PPPP1PPP/RNBQKBNR b KQkq - 0 1"
     s = GameSession(headless=True)
@@ -153,9 +153,9 @@ def test_multistream_to_pgn():
     import numpy as np
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from fixtures import DEFAULT_CORNERS
-    from chessboard_vision_tpu import geometry as geo
-    from chessboard_vision_tpu.parallel.session import MultiStreamSession
-    from chessboard_vision_tpu.rules.chesslib import Move
+    from chessboard_vision import geometry as geo
+    from chessboard_vision.parallel.session import MultiStreamSession
+    from chessboard_vision.rules.chesslib import Move
 
     g = geo.BoardGeometry.from_calibration(np.asarray(DEFAULT_CORNERS))
     sess = MultiStreamSession(g, n_streams=2)
@@ -172,8 +172,8 @@ def test_lichess_session_pgn_clock_annotations():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from fixtures import DEFAULT_CORNERS
     from unittest import mock
-    from chessboard_vision_tpu.session.lichess_session import LichessSession
-    from chessboard_vision_tpu.rules.chesslib import Move
+    from chessboard_vision.session.lichess_session import LichessSession
+    from chessboard_vision.rules.chesslib import Move
 
     client = mock.MagicMock()
     s = LichessSession(client=client, headless=True)
@@ -195,14 +195,14 @@ def test_lichess_session_pgn_clock_annotations():
 def test_lichess_session_pgn_clock_black_to_move_start():
     """From-position game whose start FEN has BLACK to move: the odd-
     numbered moves are black's, so %clk snapshots must attach to black's
-    clock (ADVICE r3 — parity was hardcoded odd=white)."""
+    clock (not a hardcoded odd=white parity)."""
     import os, sys
     import numpy as np
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from fixtures import DEFAULT_CORNERS
     from unittest import mock
-    from chessboard_vision_tpu.session.lichess_session import LichessSession
-    from chessboard_vision_tpu.rules.chesslib import Move
+    from chessboard_vision.session.lichess_session import LichessSession
+    from chessboard_vision.rules.chesslib import Move
 
     client = mock.MagicMock()
     s = LichessSession(client=client, headless=True)
@@ -230,8 +230,8 @@ def test_san_round_trip_random_playouts():
     they arise) — the writer is self-verified without an external chess
     library."""
     import numpy as np
-    from chessboard_vision_tpu.rules.chesslib import Board
-    from chessboard_vision_tpu.rules.pgn import parse_san
+    from chessboard_vision.rules.chesslib import Board
+    from chessboard_vision.rules.pgn import parse_san
 
     rng = np.random.default_rng(12)
     total = 0
@@ -261,7 +261,7 @@ def test_stalemate_result():
 
 def test_threefold_repetition_result():
     """A fully digitized game ending in threefold repetition exports
-    1/2-1/2 under claim_draws (VERDICT r3 item 7)."""
+    1/2-1/2 under claim_draws."""
     moves = ["g1f3", "g8f6", "f3g1", "f6g8"] * 2
     pgn = game_to_pgn(moves, claim_draws=True)
     assert '[Result "1/2-1/2"]' in pgn

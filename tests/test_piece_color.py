@@ -10,9 +10,9 @@ computed from the cv2 oracle path.
 import cv2
 import numpy as np
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.models.pipeline import VisionPipeline, occupancy_to_set
-from chessboard_vision_tpu.rules import classify_piece_colors, occupancy_to_colored_fen
+from chessboard_vision import geometry as geo
+from chessboard_vision.models.pipeline import VisionPipeline, occupancy_to_set
+from chessboard_vision.rules import classify_piece_colors, occupancy_to_colored_fen
 
 from fixtures import make_board_frame, initial_occupancy, DEFAULT_CORNERS
 

@@ -10,10 +10,10 @@ end through the vision pipeline on renders with per-type base radii
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.models.pipeline import VisionPipeline
-from chessboard_vision_tpu.rules import chess, classify_piece_colors
-from chessboard_vision_tpu.rules.piece_types import (
+from chessboard_vision import geometry as geo
+from chessboard_vision.models.pipeline import VisionPipeline
+from chessboard_vision.rules import chess, classify_piece_colors
+from chessboard_vision.rules.piece_types import (
     PieceTypeClassifier,
     average_radii,
     occupancy_to_full_fen,
@@ -124,7 +124,7 @@ def test_session_full_fen_and_verify(rng):
     """Live-session surface: calibrate_piece_types at the start position,
     commit a move from vision, then full_fen()/verify_position() agree
     with the rules board at piece-type granularity."""
-    from chessboard_vision_tpu.session.game_session import GameSession
+    from chessboard_vision.session.game_session import GameSession
 
     s = GameSession(headless=True)
     s.MOVE_COOLDOWN = 0.0
@@ -171,13 +171,13 @@ def test_session_full_fen_and_verify(rng):
 
 @pytest.mark.slow
 def test_promotion_full_fen_sees_queen_on_e8(rng):
-    """The queen-for-pawn radius swap through vision (VERDICT r3 item 6):
+    """The queen-for-pawn radius swap through vision:
     after e7e8q commits from frames, full_fen()/verify_position() must
     read a QUEEN on e8 off the detected circle radius — a piece-TYPE
     change at constant occupancy is exactly what occupancy-FEN clips
     cannot see. The start position carries a white queen elsewhere so
     the radius model has a queen centroid to match."""
-    from chessboard_vision_tpu.session.game_session import GameSession
+    from chessboard_vision.session.game_session import GameSession
 
     fen0 = "k7/4P3/8/8/8/8/1Q6/4K3 w - - 0 1"
     s = GameSession(headless=True)
@@ -226,7 +226,7 @@ def test_promotion_full_fen_sees_queen_on_e8(rng):
 def test_knight_without_circle_is_classified_by_extent():
     """A square the cascade resolved WITHOUT a circle (radius masked to 0)
     must still be typed from its ring-coverage extent — not degrade to
-    '?' -> pawn placeholder (VERDICT r4 item 2)."""
+    '?' -> pawn placeholder."""
     board = chess.Board()
     base_r = {1: 18, 2: 21, 3: 24, 4: 26, 5: 29, 6: 32}
     base_e = {1: 1.2, 2: 1.5, 3: 2.1, 4: 2.6, 5: 3.2, 6: 3.8}
@@ -279,7 +279,7 @@ def test_close_radii_split_by_extent():
 
 
 def test_mask_radii_by_method():
-    from chessboard_vision_tpu.rules.piece_types import mask_radii_by_method
+    from chessboard_vision.rules.piece_types import mask_radii_by_method
 
     radius = np.array([20, 25, 25, 25, 25])
     method = np.array([1, 2, 3, 4, 0])  # hough, tower_top, cdiff, sym, none
@@ -289,12 +289,12 @@ def test_mask_radii_by_method():
 
 @pytest.mark.slow
 def test_knight_typed_through_vision_when_hough_is_off(rng):
-    """End-to-end VERDICT r4 item 2 case: with the Hough stage effectively
+    """End-to-end case: with the Hough stage effectively
     disabled (param2 far above any attainable vote count), every piece
     square resolves via center_diff/symmetry — masked radius 0 — yet
     full-FEN classification still reads knights (and every other type)
     from the profile extent."""
-    from chessboard_vision_tpu.rules.piece_types import (
+    from chessboard_vision.rules.piece_types import (
         average_extents,
         mask_radii_by_method,
     )

@@ -1,6 +1,6 @@
 """with_enhancer=True: the fused enhancement stage ahead of detection.
 
-Covers VERDICT item 7 (reference frame_enhancer.py:161-181 as a
+Covers the fused enhancement stage (reference frame_enhancer.py:161-181 as a
 first-class batched stage fused into the per-frame XLA call, SURVEY §3.5):
   - the board-tile matmul color warp vs the exact gather warp
   - the integer-coordinate board->squares extraction plan (bit-exact)
@@ -14,12 +14,12 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.models.pipeline import VisionPipeline, occupancy_to_set
-from chessboard_vision_tpu.ops import matmul_resample as mr
-from chessboard_vision_tpu.ops import warp as warp_ops
-from chessboard_vision_tpu.ops.static_resample import to_planar
-from chessboard_vision_tpu.reference import ImageEnhancerCV, PieceDetectorCV
+from chessboard_vision import geometry as geo
+from chessboard_vision.models.pipeline import VisionPipeline, occupancy_to_set
+from chessboard_vision.ops import matmul_resample as mr
+from chessboard_vision.ops import warp as warp_ops
+from chessboard_vision.ops.static_resample import to_planar
+from chessboard_vision.reference import ImageEnhancerCV, PieceDetectorCV
 
 from fixtures import make_board_frame, initial_occupancy, DEFAULT_CORNERS
 

@@ -10,9 +10,9 @@ board and last_lichess_moves == "e2e4".
 import threading
 import time
 
-from chessboard_vision_tpu.rules import GameState, chess
-from chessboard_vision_tpu.session.lichess_session import LichessSession
-from chessboard_vision_tpu.session.noise import NoiseHandler
+from chessboard_vision.rules import GameState, chess
+from chessboard_vision.session.lichess_session import LichessSession
+from chessboard_vision.session.noise import NoiseHandler
 
 
 class MockLichessClient:

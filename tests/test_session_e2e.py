@@ -9,8 +9,8 @@ camera and network.
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu.session.game_session import GameSession
-from chessboard_vision_tpu.rules import chess
+from chessboard_vision.session.game_session import GameSession
+from chessboard_vision.rules import chess
 
 from fixtures import make_board_frame, initial_occupancy, DEFAULT_CORNERS
 

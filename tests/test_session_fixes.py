@@ -13,12 +13,12 @@ from unittest import mock
 
 import pytest
 
-from chessboard_vision_tpu.rules import chess
-from chessboard_vision_tpu.rules.game_state import GameState
-from chessboard_vision_tpu.session.game_session import GameSession
-from chessboard_vision_tpu.session.lichess_session import LichessSession
-from chessboard_vision_tpu.session.noise import NoiseHandler, NoiseState
-from chessboard_vision_tpu.net.lichess_client import LichessClient
+from chessboard_vision.rules import chess
+from chessboard_vision.rules.game_state import GameState
+from chessboard_vision.session.game_session import GameSession
+from chessboard_vision.session.lichess_session import LichessSession
+from chessboard_vision.session.noise import NoiseHandler, NoiseState
+from chessboard_vision.net.lichess_client import LichessClient
 
 
 def _bare_session():
@@ -102,8 +102,8 @@ class TestSyncMoves:
 
 
 class TestReconnectBudget:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_dead_stream_reconnects_max_retries_times(self, get, sleep):
         resp = mock.MagicMock(status_code=200)
         resp.iter_lines.return_value = []  # dead: no events ever
@@ -118,9 +118,9 @@ class TestReconnectBudget:
 
 
 class TestSeek:
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.time.sleep")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.post")
-    @mock.patch("chessboard_vision_tpu.net.lichess_client.requests.get")
+    @mock.patch("chessboard_vision.net.lichess_client.time.sleep")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.post")
+    @mock.patch("chessboard_vision.net.lichess_client.requests.get")
     def test_seek_polls_for_new_game(self, get, post, _sleep):
         post.return_value = mock.MagicMock(status_code=200)
         ongoing = [[], [{"gameId": "new1"}]]  # before seek, after match

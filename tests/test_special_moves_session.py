@@ -16,7 +16,7 @@ tests/test_regression_clip.py (clips castle/enpassant/promotion).
 import numpy as np
 import pytest
 
-from chessboard_vision_tpu.session.game_session import GameSession
+from chessboard_vision.session.game_session import GameSession
 
 from fixtures import make_board_frame, DEFAULT_CORNERS
 from test_regression_clip import SPECIAL_SCRIPTS, special_occupancy_script

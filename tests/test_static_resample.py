@@ -4,12 +4,12 @@ gather path and to the composed warp+extract+gray preprocess."""
 import numpy as np
 import jax.numpy as jnp
 
-from chessboard_vision_tpu import geometry as geo
-from chessboard_vision_tpu.ops import static_resample as sr
-from chessboard_vision_tpu.ops import warp as W
-from chessboard_vision_tpu.ops.color import bgr2gray
-from chessboard_vision_tpu.ops.filters import gaussian_blur_valid
-from chessboard_vision_tpu.models.pipeline import VisionPipeline
+from chessboard_vision import geometry as geo
+from chessboard_vision.ops import static_resample as sr
+from chessboard_vision.ops import warp as W
+from chessboard_vision.ops.color import bgr2gray
+from chessboard_vision.ops.filters import gaussian_blur_valid
+from chessboard_vision.models.pipeline import VisionPipeline
 
 CORNERS = np.array([[173, 133], [1100, 110], [150, 650], [1131, 680]])
 
